@@ -21,6 +21,11 @@ ERadiance only).
 Occlusion note: shadow rays treat MASK surfaces as opaque (the
 reference's evalTransmittance composites the null component of masks;
 a documented approximation here).
+
+Scenes whose material table holds only Lambertian and delta kinds
+(Materials.kinds(), static under jit) take short paths that compute
+those kinds alone: the same values, a fraction of the program (the full
+dispatch quadruples the compiled size of a render or train step).
 """
 
 from __future__ import annotations
@@ -36,12 +41,20 @@ from alvrl_tpu.bsdf import microfacet as mf
 from alvrl_tpu.core import math as m
 from alvrl_tpu.core import rng, warp
 from alvrl_tpu.scene.scene import (
-    COATING, DIELECTRIC, DIFFTRANS, DIFFUSE, HK, IRAWAN, MASK, MIXTURE,
-    NORMALMAP, PHONG, PLASTIC, ROUGH_COATING, ROUGH_CONDUCTOR,
-    ROUGH_DIELECTRIC, ROUGH_PLASTIC, WARD,
+    COATING, DIELECTRIC, DIFFTRANS, DIFFUSE, HK, IRAWAN, MASK, MIRROR,
+    MIXTURE, NORMALMAP, NULL, PHONG, PLASTIC, ROUGH_COATING,
+    ROUGH_CONDUCTOR, ROUGH_DIELECTRIC, ROUGH_PLASTIC, WARD,
     Scene,
 )
 from alvrl_tpu.textures.procedural import albedo_at
+
+LAMBERT_DELTA = frozenset((DIFFUSE, NULL, MIRROR, DIELECTRIC))
+
+
+def lambert_delta_only(scene: Scene) -> bool:
+    """Whether every material is Lambertian or delta (static)."""
+    kinds = scene.materials.kinds()
+    return kinds is not None and kinds <= LAMBERT_DELTA
 
 
 def _leaf_eval_local(scene: Scene, mat_id, wi_l, wo_l, albedo):
@@ -110,6 +123,14 @@ def eval_smooth(scene: Scene, mat_id, ng, wi_world, wo_world,
 
     mats = scene.materials
     kind = mats.kind[mat_id]
+    if lambert_delta_only(scene):
+        s_f, t_f = m.build_frame(ng)
+        cos_o = jnp.maximum(m.frame_to_local(s_f, t_f, ng, wo_world)[..., 2],
+                            0.0)
+        alb = (mats.albedo[mat_id] if p_world is None
+               else albedo_at(scene, mat_id, p_world, uv=uv))
+        return jnp.where((kind == DIFFUSE)[..., None],
+                         alb * (cos_o / jnp.pi)[..., None], 0.0)
 
     # normal mapping perturbs the shading frame before everything else
     if uv is not None:
@@ -264,6 +285,11 @@ def pdf_smooth(scene: Scene, mat_id, ng, wi_world, wo_world, uv=None):
 
     mats = scene.materials
     kind = mats.kind[mat_id]
+    if lambert_delta_only(scene):
+        s_f, t_f = m.build_frame(ng)
+        cos_o = jnp.maximum(m.frame_to_local(s_f, t_f, ng, wo_world)[..., 2],
+                            0.0)
+        return jnp.where(kind == DIFFUSE, cos_o / jnp.pi, 0.0)
     if uv is not None:
         ng_pert = layered.perturbed_normal(scene, mat_id, ng, uv)
         ng = jnp.where((kind == NORMALMAP)[..., None], ng_pert, ng)
@@ -348,6 +374,9 @@ def sample_from_uniforms(scene: Scene, u, mat_id, ng, ng_raw, d_in,
     primary-sample-space entry point (pssmlt owns and mutates u)."""
     from alvrl_tpu.integrators.vrl.specular import specular_bounce
 
+    if lambert_delta_only(scene):
+        return _sample_lambert_delta(scene, u, mat_id, ng, ng_raw, d_in,
+                                     p_world, mode, uv)
     mats = scene.materials
 
     from alvrl_tpu.bsdf import layered
@@ -602,4 +631,34 @@ def sample_from_uniforms(scene: Scene, u, mat_id, ng, ng_raw, d_in,
     return BSDFSample(
         wo=wo, weight=weight, eta_ratio=eta_ratio,
         is_delta=is_delta, is_smooth=is_smooth, valid=valid,
+    )
+
+
+def _sample_lambert_delta(scene: Scene, u, mat_id, ng, ng_raw, d_in,
+                          p_world, mode, uv) -> BSDFSample:
+    """sample_from_uniforms for a table of Lambertian and delta kinds:
+    the cosine lobe of DIFFUSE and the delta continuations, with the
+    full dispatch's uniforms and values."""
+    from alvrl_tpu.integrators.vrl.specular import specular_bounce
+
+    kind = scene.materials.kind[mat_id]
+    s_f, t_f = m.build_frame(ng)
+    wo_l = warp.square_to_cosine_hemisphere(u[..., 1:3])
+    albedo = albedo_at(scene, mat_id, p_world, uv=uv)
+    wo_spec, w_spec, eta_ratio_d, is_delta = specular_bounce(
+        scene, u[..., 4], mat_id, d_in, ng_raw)
+    if mode == "importance":
+        w_spec = jnp.where(
+            (kind == DIELECTRIC)[..., None]
+            & (jnp.abs(eta_ratio_d - 1.0) > 1e-6)[..., None],
+            jnp.ones_like(w_spec), w_spec,
+        )
+    is_diffuse = kind == DIFFUSE
+    return BSDFSample(
+        wo=jnp.where(is_delta[..., None], wo_spec,
+                     m.frame_to_world(s_f, t_f, ng, wo_l)),
+        weight=jnp.where(is_delta[..., None], w_spec, albedo),
+        eta_ratio=jnp.where(is_delta, eta_ratio_d, 1.0),
+        is_delta=is_delta, is_smooth=is_diffuse,
+        valid=is_diffuse | is_delta,
     )

@@ -32,7 +32,7 @@ Patterns come from (a) plain dicts / make_pattern, (b) two built-in
 presets, or (c) the reference's external weave-pattern DSL files via
 parse_weave/load_weave_file (the boost.spirit grammar of irawan.h:
 228-406 — comments, $param substitution, degree->radian angles,
-1-based pattern ids). Everything is a flax pytree so eval is fully
+1-based pattern ids). Everything is a pytree so eval is fully
 batched.
 
 Divergence (documented): umax noise via `period` uses our value-noise
@@ -46,7 +46,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from alvrl_tpu.core import struct
 
 _INV_PI = 1.0 / np.pi
 

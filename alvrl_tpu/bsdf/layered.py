@@ -130,8 +130,8 @@ def perturbed_normal(scene, mat_id, ng, uv):
 
 def bump_to_normal_map(height, strength=1.0):
     """Host-side conversion of a (H, W) height texture into a tangent
-    normal map (bumpmap.cpp evaluates dh/du, dh/dv at shade time; on
-    TPU we bake it once)."""
+    normal map (bumpmap.cpp evaluates dh/du, dh/dv at shade time; here
+    it is baked once)."""
     import numpy as np
 
     h = np.asarray(height, np.float32)

@@ -3,8 +3,8 @@
 Counterpart of src/libcore/brent.cpp (BrentSolver, used by the
 reference's heterogeneous medium to invert density integrals) and
 src/libcore/quad.cpp (GaussLobattoIntegrator). `brent` is written as a
-fixed-iteration `lax.while_loop` so it jits and vmaps — the TPU form
-of an iterative scalar solver; `gauss_lobatto` is the adaptive
+fixed-iteration `lax.while_loop` so it jits and vmaps — the device
+form of an iterative scalar solver; `gauss_lobatto` is the adaptive
 host-side integrator (device code paths use fixed-step composite
 rules, which XLA pipelines better than recursion).
 """

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import math as m
 from alvrl_tpu.core import rng, spectrum, warp

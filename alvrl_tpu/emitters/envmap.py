@@ -3,7 +3,7 @@ luminance-proportional importance sampling.
 
 Counterpart of src/emitters/envmap.cpp (an EXR lat-long map wrapped on
 the scene bounding sphere, importance-sampled from a luminance
-distribution). TPU-native design: the map and its sampling tables are
+distribution). Array-native design: the map and its sampling tables are
 plain arrays; sampling is two CDF inversions (row, then column) via
 `searchsorted`, uniform within the chosen texel, so the solid-angle pdf
 is piecewise constant and *exactly* consistent with `eval` (which uses
@@ -23,7 +23,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import spectrum
 

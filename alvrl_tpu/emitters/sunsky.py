@@ -4,7 +4,7 @@ Counterpart of src/emitters/{sky,sun,sunsky}.cpp. The reference
 evaluates the Preetham analytic sky per query and a tabulated solar
 spectrum attenuated by the Preetham atmosphere; here both are baked
 once (host-side numpy) into the EnvMap sampling structure — the
-TPU-native shape: the render path sees only the importance-sampled
+Array-native shape: the render path sees only the importance-sampled
 texture, identical to any other envmap. RGB (3-channel) instead of the
 reference's full spectral pipeline, consistent with the framework-wide
 SPECTRUM_SAMPLES=3 default (spectrum.h:25).

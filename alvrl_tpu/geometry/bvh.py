@@ -1,6 +1,6 @@
 """BVH: native binned-SAH build + device traversal.
 
-TPU-native replacement for the reference's SAH kd-tree
+Array-native replacement for the reference's SAH kd-tree
 (gkdtree.h/sahkdtree3.h/skdtree.h): the *build* runs in C++
 (native/bvh_builder.cpp, loaded via ctypes — same native-build stance
 as the reference, minus the plugin loader), the *traversal* is a

@@ -1,6 +1,6 @@
 """Ray-triangle and ray-scene intersection.
 
-TPU-native replacement for the reference's SAH kd-tree + TriAccel SSE
+Array-native replacement for the reference's SAH kd-tree + TriAccel SSE
 traversal (include/mitsuba/render/{gkdtree,sahkdtree3,skdtree,triaccel}.h).
 
 Design: on a vector machine, divergent per-ray tree traversal is the enemy.
@@ -9,8 +9,7 @@ We therefore provide two paths:
   * `intersect_all` / `occluded`: fully vectorized ray x triangle tests
     (Moller-Trumbore) with a masked argmin. For the scene sizes of the
     ALVRL benchmark family (Cornell-box-scale, tens to thousands of
-    triangles) this maps perfectly onto the VPU/MXU with zero divergence
-    and beats tree traversal on TPU.
+    triangles) this is dense, divergence-free array work.
   * a BVH path (alvrl_tpu.geometry.bvh) for large meshes, traversed with a
     short-stack `lax.while_loop`, used when triangle count exceeds a
     crossover threshold.

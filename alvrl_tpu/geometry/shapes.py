@@ -226,8 +226,7 @@ def load_hair_file(path, radius_default=0.025):
 
 def instance(base_v, base_f, to_worlds):
     """Shape instancing (instance.cpp/shapegroup.cpp): replicate a mesh
-    under a list of 4x4 transforms. On TPU the win of shared geometry
-    is VMEM locality, not memory — meshes are flattened up front and
+    under a list of 4x4 transforms. Meshes are flattened up front and
     the BVH sees the union (the reference's kd-tree nests instead)."""
     all_v, all_f = [], []
     off = 0

@@ -14,7 +14,7 @@ or a maximum sample factor is reached. Semantics preserved:
   * per-pixel mean/variance by Knuth online update (adaptive.cpp:245-248)
     — here the batched Welford-merge equivalent.
 
-TPU-native design: instead of a per-pixel while-loop (divergent,
+Array-native design: instead of a per-pixel while-loop (divergent,
 scalar), sampling proceeds in ROUNDS of base_spp samples for the set of
 still-unconverged pixels. Each round compacts the active pixel indices
 host-side into a dense ray batch (padded to a power-of-two bucket to

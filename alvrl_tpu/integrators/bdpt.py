@@ -13,7 +13,7 @@ paths that escape hit it (the s = 0 family), and both families share
 one area-measure parameterization so the MIS weights close. ENVMAP
 (textured) emitters remain outside bdpt (use volpath/ptracer).
 
-TPU design: subpaths have STATIC maximum lengths (n_eye, n_light); both
+Array design: subpaths have STATIC maximum lengths (n_eye, n_light); both
 random walks are lax.scans storing struct-of-arrays vertex records
 (position, shading normal, material, throughput beta, forward/reverse
 area pdfs, delta flag). Every (s, t) connection strategy is an
@@ -41,7 +41,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.bsdf import api as bsdf_api
 from alvrl_tpu.core import math as m

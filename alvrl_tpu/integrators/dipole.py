@@ -4,7 +4,7 @@ Counterpart of src/subsurface/dipole.cpp (Jensen et al. 2001 BSSRDF
 with the classical dipole diffusion profile). The reference gathers
 irradiance into an octree of surface samples during preprocess and
 evaluates Sum Rd(|xo - xi|) E(xi) A(xi) through a hierarchical query;
-the TPU re-design keeps the two-stage structure but replaces the
+the Array re-design keeps the two-stage structure but replaces the
 octree with a dense (shading-point x sample-point) masked sweep — the
 same shape as the photon-map and VPL gathers, which the VPU executes
 faster than divergent tree walks at these sample counts.
@@ -21,7 +21,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.bsdf.lobes import fresnel_dielectric_scalar
 from alvrl_tpu.core import math as m

@@ -7,7 +7,7 @@ neighborhood in path space by short Metropolis chains making local
 mutations only, which trades PT's salt-and-pepper noise for smooth
 low-frequency error.
 
-TPU re-design (vs the reference's per-thread chains over libbidir
+Array re-design (vs the reference's per-thread chains over libbidir
 path-space mutations, erpt_proc.cpp): paths live in primary sample
 space — the same deterministic `li_from_uniforms` map as PSSMLT — and
 chains are seeded by *importance resampling* the seed pass (categorical
@@ -31,7 +31,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import spectrum
 from alvrl_tpu.integrators.pssmlt import (

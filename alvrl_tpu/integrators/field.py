@@ -6,7 +6,7 @@ returns it as an image — used together with `multichannel` to dump
 auxiliary channels (depth, normals, UVs, albedo, ids) for computer-
 vision-style benchmark data.
 
-TPU-native design: one vectorized closest-hit pass over all pixels; the
+Array-native design: one vectorized closest-hit pass over all pixels; the
 field select is a static dispatch (each render is jit-compiled for one
 field kind), so there is no per-pixel branching.
 """

@@ -28,7 +28,7 @@ semantics (with file:line citations):
   * overture pass then quality *= qualityAdjustment
     (misc/irrcache.cpp:218-243).
 
-TPU-native design: the reference fills the cache lazily per pixel
+Array-native design: the reference fills the cache lazily per pixel
 behind an octree (host-sequential); here the overture runs in ROUNDS —
 a vectorized coverage test over all candidate pixels picks an uncovered
 batch, one device call gathers all of the batch's hemispheres at once,

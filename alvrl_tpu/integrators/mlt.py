@@ -8,7 +8,7 @@ lens / caustic / multi-chain mutations from libbidir, mlt_proc.cpp);
 that vocabulary of hand-crafted mutations exists to keep proposals
 ergodic and cheap on a CPU.
 
-TPU re-design: the chain walks the primary sample cube of the
+Array re-design: the chain walks the primary sample cube of the
 *bidirectional* estimator (bdpt.li_bdpt_from_uniforms) — the same
 target distribution family (every (s, t) strategy, Veach-MIS-weighted)
 with Kelemen small-step/large-step proposals instead of path-space
@@ -30,7 +30,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import spectrum
 from alvrl_tpu.integrators.bdpt import (

@@ -4,7 +4,7 @@ Counterpart of two reference features:
 
   * `deformable` shape (src/shapes/deformable.cpp): keyframed meshes
     intersected at the ray's time by linear vertex interpolation (the
-    reference builds a 4D space-time kd-tree; on TPU the time dimension
+    reference builds a 4D space-time kd-tree; here the time dimension
     dissolves — each sampled shutter time lerps the vertex buffer ONCE
     per pass, a (V, 3) elementwise op, and the regular static-scene
     intersectors run unchanged);

@@ -6,7 +6,7 @@ rays and packs each result into named channels of one multichannel EXR
 (the reference pairs it with `field` to dump depth / normals / albedo
 alongside the beauty pass).
 
-TPU-native design: sub-renders are independent jit-compiled passes over
+Array-native design: sub-renders are independent jit-compiled passes over
 the same deterministic pixel grid (rather than interleaved per-sample
 as in the reference's renderBlock loop — per-pixel values are identical
 because each pass integrates the same estimator to convergence

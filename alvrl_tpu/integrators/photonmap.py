@@ -3,7 +3,7 @@ progressive (PPM/SPPM-style) driver.
 
 Counterpart of src/integrators/photonmapper/{photonmapper,ppm,sppm}.cpp
 and the photon map infrastructure (src/librender/photonmap.cpp over the
-point kd-tree, include/mitsuba/core/kdtree.h). TPU re-design: photons
+point kd-tree, include/mitsuba/core/kdtree.h). Array re-design: photons
 live in fixed-capacity struct-of-arrays buffers and radius queries are
 brute-force masked reductions over photon chunks — at benchmark photon
 counts (1e4-1e6) a dense (queries x photons) sweep on the VPU beats
@@ -27,7 +27,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import math as m
 from alvrl_tpu.core import rng
@@ -440,7 +440,7 @@ def volume_estimate_grid(scene: Scene, pm: PhotonMap, grid: HashGrid,
 # radius from a locally-uniform-density kNN estimate (bre.cpp:60-75)
 # and the camera ray gathers ALL photon discs it pierces in one sweep
 # (query, bre.cpp:138-180) — an O(1)-variance beam estimate along the
-# whole ray. TPU re-design: the reference walks a photon-kd-tree/AABB
+# whole ray. Array re-design: the reference walks a photon-kd-tree/AABB
 # hierarchy per ray; here both the kNN radius build and the beam query
 # are dense chunked (query x photon) masked reductions on the VPU —
 # same shape as the triangle and photon sweeps above, no divergent

@@ -26,10 +26,7 @@ from alvrl_tpu.integrators.vrl import alvrl as alvrl_mod
 from alvrl_tpu.integrators.vrl import tracer as tracer_mod
 from alvrl_tpu.integrators.vrl import vrl as vrl_mod
 from alvrl_tpu.integrators.vrl.integrate import VRLConfig
-from alvrl_tpu.integrators.vrl.integrator import (
-    render_with_vrls,
-    render_with_vrls_pallas,
-)
+from alvrl_tpu.integrators.vrl.integrator import render_with_vrls
 
 log = get_logger("progressive")
 
@@ -41,7 +38,6 @@ class ProgressiveConfig:
     dump_dir: str = "passes"
     dump_prefix: str = "pass"
     clustered: bool = False
-    use_pallas: bool = False
     antialias: bool = True  # fresh sub-pixel jitter each pass
     checkpoint_path: str | None = None  # .npz accumulator for resume
 
@@ -100,12 +96,9 @@ def render_progressive(
                     raw, params.vrl_target_num,
                     slots_per_particle=tracer_cfg.max_depth,
                 )
-                if prog.use_pallas:
-                    img = render_with_vrls_pallas(scene, vrls, k_r, cfg)
-                else:
-                    img = render_with_vrls(
-                        scene, vrls, k_r, cfg, antialias=prog.antialias
-                    )
+                img = render_with_vrls(
+                    scene, vrls, k_r, cfg, antialias=prog.antialias
+                )
             img = np.asarray(jax.block_until_ready(img))
         wall = time.perf_counter() - t0
 

@@ -10,7 +10,7 @@ chain mutates the vector with Kelemen's symmetric log-exponential
 small steps plus large-step restarts; acceptance is the luminance
 ratio; both states deposit luminance-normalized contributions.
 
-TPU design: the reference runs a handful of chains on worker threads
+Array design: the reference runs a handful of chains on worker threads
 (pssmlt_proc.cpp); here MANY independent chains advance in lockstep —
 one vmap over chains, one lax.scan over mutations, film deposits by
 segment_sum — turning an inherently sequential algorithm into a wide
@@ -28,7 +28,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.bsdf import api as bsdf_api
 from alvrl_tpu.core import math as m

@@ -15,7 +15,7 @@ makes the "previous vertex must be volume/diffuse" gate apply at *every*
 depth >= 2, not only at depth 2. We must match the code, not the intent,
 since this defines the family being compared.
 
-TPU design: one lax.scan over bounce depth, vmapped over rays; all
+Array design: one lax.scan over bounce depth, vmapped over rays; all
 per-vertex branching is masked arithmetic.
 """
 
@@ -25,7 +25,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import math as m
 from alvrl_tpu.core import rng

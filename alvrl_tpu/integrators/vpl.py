@@ -2,7 +2,7 @@
 
 Counterpart of src/integrators/vpl/vpl.cpp (268 LoC) and the VPL
 generator src/librender/vpl.cpp:237. The reference renders each VPL in
-a separate OpenGL pass with shadow maps (libhw); the TPU re-design is a
+a separate OpenGL pass with shadow maps (libhw); the Array re-design is a
 dense (pixel x VPL) gather sweep — the same shape as the VRL transfer
 matrix and the photon-map estimate — with per-pair analytic shadow rays
 instead of rasterized shadow maps.
@@ -28,7 +28,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.bsdf import api as bsdf_api
 from alvrl_tpu.core import math as m

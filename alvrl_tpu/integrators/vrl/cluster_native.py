@@ -18,19 +18,33 @@ the same formulas.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import subprocess
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                           "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libalvrl_cluster.so"))
+_NATIVE_DIR = os.path.abspath(os.path.join(
+    os.path.dirname(__file__), "..", "..", "..", "native"))
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libalvrl_cluster.so")
 
 _lib = None
 
 
-def available() -> bool:
-    return _load() is not None
+def _build():
+    """Build the library from native/Makefile at first use. Concurrent
+    processes serialize on a lock file; a failed build raises with the
+    compiler's output."""
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(_LIB_PATH):
+            return
+        r = subprocess.run(["make", "-C", _NATIVE_DIR, "libalvrl_cluster.so"],
+                           capture_output=True, text=True)
+        if r.returncode != 0 or not os.path.exists(_LIB_PATH):
+            raise RuntimeError(
+                "building native/libalvrl_cluster.so failed:\n"
+                + r.stdout + r.stderr)
 
 
 def _load():
@@ -38,14 +52,7 @@ def _load():
     if _lib is not None:
         return _lib
     if not os.path.exists(_LIB_PATH):
-        src = os.path.join(os.path.dirname(_LIB_PATH), "cluster_refine.cpp")
-        if os.path.exists(src):
-            os.system(
-                f"make -C {os.path.dirname(_LIB_PATH)} libalvrl_cluster.so "
-                ">/dev/null 2>&1"
-            )
-    if not os.path.exists(_LIB_PATH):
-        return None
+        _build()
     lib = ctypes.CDLL(_LIB_PATH)
     c_dp = ctypes.POINTER(ctypes.c_double)
     c_ip = ctypes.POINTER(ctypes.c_int64)

@@ -26,9 +26,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import math as m
+from alvrl_tpu.core import rng
 from alvrl_tpu.core import spectrum as spec
 from alvrl_tpu.geometry import intersect
 from alvrl_tpu.media import api as mapi
@@ -58,6 +59,10 @@ class VRLConfig:
     # tracer's sampling score and is the correct mode when
     # differentiating the FULL trace->render pipeline.
     detached: bool = struct.field(pytree_node=False, default=False)
+    # the fused GPU pair kernel (ops.pair_kernel) wherever it applies; off
+    # keeps the XLA pair sum (needed for forward-mode AD: the kernel has
+    # a custom VJP only)
+    fused_kernel: bool = struct.field(pytree_node=False, default=True)
 
 
 # ---------------------------------------------------------------------------
@@ -378,3 +383,89 @@ def pair_contribution(
     lum_mean = jnp.where(mask, lum_mean, 0.0)
     lum_var = jnp.where(mask, lum_var, 0.0)
     return total, lum_mean, lum_var
+
+
+# ---------------------------------------------------------------------------
+# The pair sum over a VRL set: the XLA path and the plain reference of the
+# fused GPU kernel (alvrl_tpu.ops.pair_kernel).
+# ---------------------------------------------------------------------------
+
+def pair_uniforms(seed, ray_idx, vrl_idx, cfg: VRLConfig):
+    """Hash uniforms for rays (B,) x VRLs (C,): u_vv (B, C, S_vv, 2) and
+    u_vs (B, C, S_vs). Slot 2s+k is the k-th draw of vol-vol sample s;
+    slot 2*S_vv+s the draw of vol-surf sample s."""
+    n_vv, n_vs = cfg.vol_vol_samples, cfg.vol_surf_samples
+    if 2 * n_vv + n_vs > rng.MAX_PAIR_SLOTS:
+        raise ValueError(f"{n_vv} vol-vol + {n_vs} vol-surf samples need "
+                         f"more than {rng.MAX_PAIR_SLOTS} hash slots")
+    rh = rng.ray_hash(seed, ray_idx)[:, None]
+
+    def u(slot):
+        return rng.pair_u01(rh, rng.vrl_slot_hash(vrl_idx, slot)[None, :])
+
+    b, c = ray_idx.shape[0], vrl_idx.shape[0]
+    u_vv = (jnp.stack([jnp.stack([u(2 * s), u(2 * s + 1)], -1)
+                       for s in range(n_vv)], -2)
+            if n_vv else jnp.zeros((b, c, 0, 2), jnp.float32))
+    u_vs = (jnp.stack([u(2 * n_vv + s) for s in range(n_vs)], -1)
+            if n_vs else jnp.zeros((b, c, 0), jnp.float32))
+    return u_vv, u_vs
+
+
+def pair_sum(scene: Scene, ray_o, ray_d, hit_p, hit_valid, hit_ng, hit_mat,
+             vrl_s, vrl_e, vrl_p, vrl_valid, seed, cfg: VRLConfig,
+             vrl_od=None):
+    """Per-ray sum over a VRL set of pair_contribution, drawn with the
+    hash uniforms of (seed, ray index, VRL index).
+
+    ray_*/hit_*: (B, ...). vrl_*: (M, N, ...) with M = 1 (one set shared
+    by all rays) or M = B (a set per ray, as in the clustered render);
+    a VRL's index is its column along N. Scans N in chunks of
+    cfg.vrl_chunk. Grid media interpolate cumulative-OD tables: the eye
+    tables are built here, the VRL tables (M, N, nq+1) may be passed in.
+    Returns (B, 3), not normalized by the particle count."""
+    b = ray_o.shape[0]
+    m_rows, n = vrl_s.shape[:2]
+    c = min(cfg.vrl_chunk, n)
+    n_chunks = -(-n // c)
+    pad = n_chunks * c - n
+
+    def chunked(a):
+        if pad:
+            a = jnp.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+        return jnp.moveaxis(a.reshape((m_rows, n_chunks, c) + a.shape[2:]),
+                            1, 0)
+
+    use_tables = not mapi.is_homogeneous(scene.medium)
+    if use_tables:
+        from alvrl_tpu.media import heterogeneous as gmed
+
+        eye_od = gmed.cumulative_od(scene.medium, ray_o, hit_p)[:, None]
+        if vrl_od is None:
+            vrl_od = gmed.cumulative_od(scene.medium, vrl_s, vrl_e)
+        v_od = chunked(vrl_od)
+    else:
+        eye_od = None
+        v_od = jnp.zeros((n_chunks, 1))
+
+    ray_idx = jnp.arange(b)
+    expand = lambda a: a[:, None] if a.ndim == 1 else a[:, None, :]
+
+    def body(acc, inp):
+        ci, vs, ve, vp, vv, vod = inp
+        u_vv, u_vs = pair_uniforms(seed, ray_idx, ci * c + jnp.arange(c),
+                                   cfg)
+        total, _, _ = pair_contribution(
+            scene, expand(ray_o), expand(ray_d), expand(hit_p),
+            expand(hit_valid), expand(hit_ng), expand(hit_mat),
+            vs, ve, vp, vv, u_vv, u_vs, cfg,
+            eye_od=eye_od, vrl_od=vod if use_tables else None,
+        )
+        return acc + jnp.sum(total, axis=1), None
+
+    acc, _ = jax.lax.scan(
+        body, jnp.zeros((b, 3), jnp.float32),
+        (jnp.arange(n_chunks), chunked(vrl_s), chunked(vrl_e),
+         chunked(vrl_p), chunked(vrl_valid), v_od),
+    )
+    return acc

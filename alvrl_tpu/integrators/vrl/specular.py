@@ -8,7 +8,7 @@ Russian roulette on throughputWithEtaSq (forced stopping probability
 0.98 beyond specularForcedRRdepth, initial throughput
 `initialSpecularThroughput`).
 
-TPU design: the recursion tree is re-shaped into a bounded loop:
+Array design: the recursion tree is re-shaped into a bounded loop:
   * MIRROR and NULL have one delta lobe — followed deterministically;
   * DIELECTRIC has two lobes (reflect/refract) which the reference
     enumerates as a tree; we sample ONE lobe per step with the Fresnel
@@ -18,7 +18,7 @@ TPU design: the recursion tree is re-shaped into a bounded loop:
 
 from __future__ import annotations
 
-from flax import struct
+from alvrl_tpu.core import struct
 
 import jax
 import jax.numpy as jnp

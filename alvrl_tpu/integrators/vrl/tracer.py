@@ -1,6 +1,6 @@
 """VRL generation by volumetric photon tracing.
 
-TPU-native counterpart of vrlTracer (src/integrators/vrl/vrlTracer.h):
+Array-native counterpart of vrlTracer (src/integrators/vrl/vrlTracer.h):
 the reference traces particles *serially on the master* until
 vrlTargetNum VRLs are stored (vrlTracer.h:13-52) — a known scalability
 gap. Here `trace` runs a fixed budget of particles as one vmapped
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import math as m
 from alvrl_tpu.core import rng

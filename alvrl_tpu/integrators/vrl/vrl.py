@@ -2,7 +2,7 @@
 
 Counterpart of VRL / vrlVector (src/integrators/vrl/VRL.h). Where the
 reference grows a std::vector until vrlTargetNum VRLs are stored, the
-TPU build traces a *fixed* number of particles in parallel and emits a
+array build traces a *fixed* number of particles in parallel and emits a
 fixed-capacity (particles x max_depth) buffer with a validity mask —
 the estimator normalizes by traced-particle count (VRL.h:164,
 vrlIntegrator.cpp:590), so a fixed particle budget is unbiased by
@@ -14,7 +14,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from alvrl_tpu.core import struct
 
 
 @struct.dataclass

@@ -5,7 +5,7 @@ a scalar density field on a regular grid (trilinear interpolation,
 gridvolume.cpp:337-364) with spectral extinction sigma_t = density *
 scale * sigma_t_color, constant albedo and HG phase.
 
-Sampling follows the reference's two strategies, TPU-adapted:
+Sampling follows the reference's two strategies, adapted to batched arrays:
   * distance sampling: Woodcock delta tracking
     (heterogeneous.cpp:633-658) as a bounded `lax.while_loop`; the
     sampled distance is detached (discrete acceptance events);
@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import rng
 
@@ -43,10 +43,9 @@ class GridMedium:
     max_density: jax.Array   # scalar: max(density) * scale (Woodcock bound)
     phase_kind: int = struct.field(pytree_node=False, default=0)  # phase.HG
     # Quadrature lookups use nearest-neighbor reads of a 2x trilinearly
-    # supersampled grid (1 gather/sample instead of 8 corner gathers) —
-    # the TPU render path is gather-bound; measured OD error vs full
-    # trilinear is <1% on smooth fields (tests). Set False for exact
-    # trilinear quadrature.
+    # supersampled grid (1 gather/sample instead of 8 corner gathers);
+    # the OD error vs full trilinear is <1% on smooth fields (tests).
+    # Set False for exact trilinear quadrature.
     fast_tau: bool = struct.field(pytree_node=False, default=True)
     # oriented media (heterogeneous.cpp orientation volumes +
     # needsDirectionallyVaryingCoefficients): local fiber directions and
@@ -158,7 +157,7 @@ def lookup_density_nn(med: GridMedium, p):
     """Nearest lookup in the 2x supersampled grid — equals trilinear
     interpolation evaluated at the nearest half-cell point (max position
     error 1/4 voxel per axis). ONE gather per sample point vs 8 for
-    trilinear: the quadrature fast path on gather-bound TPUs."""
+    trilinear: the quadrature fast path."""
     dz, dy, dx = med.density.shape
     ss = med.density_ss
     extent = med.box_max - med.box_min
@@ -279,12 +278,10 @@ def dir_factor(med: GridMedium, p, d):
 N_TAU_STEPS = 16
 
 
-# Unroll threshold for the quadrature loops. TPU fori_loop iterations
-# with tiny bodies serialize and block fusion: the measured in-render
-# gather rate was 22.8 M/s under fori vs 89 M/s unrolled (4x) on the
-# config-4 shapes — each iteration pays loop overhead and forces its
-# (batch,)-shaped carries through HBM. Unrolled, XLA fuses the whole
-# accumulation chain. Above the threshold (step counts beyond any
+# Unroll threshold for the quadrature loops. fori_loop iterations with
+# tiny bodies serialize and block fusion: each iteration pays loop
+# overhead and forces its (batch,)-shaped carries through device
+# memory. Unrolled, XLA fuses the whole accumulation chain. Above the threshold (step counts beyond any
 # render-path use) fall back to fori to bound code size.
 _UNROLL_MAX = 32
 
@@ -502,7 +499,7 @@ def sample_distance_quadrature(med: GridMedium, key, ray_o, ray_d,
 
     Counterpart of the ESimpsonQuadrature path (integrateDensity
     heterogeneous.cpp:301 + the Newton-bisection invertDensityIntegral
-    :420): on TPU the monotone cumulative-OD table replaces the
+    :420): here the monotone cumulative-OD table replaces the
     iterative root polish — a searchsorted + linear interpolation,
     fixed shape, one quadrature sweep."""
     chan = jnp.mean(med.sigma_t_color)

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import rng
 

@@ -201,7 +201,7 @@ def eval_microflake(pp: PhaseParams, orientation, wi, wo):
 
 def sample_microflake(pp: PhaseParams, orientation, wi, u_sir):
     """Flake-normal sampling: the reference rejection-samples H ~ D and
-    accepts with |wi.H| (microflake.cpp:sample). TPU re-design: draw a
+    accepts with |wi.H| (microflake.cpp:sample). Array re-design: draw a
     fixed batch of K candidates and pick one by sampling-importance-
     resampling on |wi.H| — fixed shape, no data-dependent loop; bias is
     O(1/K) and chi-square-tested. u_sir: (K, 3) uniforms (2 per
@@ -273,7 +273,7 @@ def sample_kkay(pp: PhaseParams, orientation, wi, u2):
 # ---------------------------------------------------------------------------
 # Mixture phase function (src/phase/mixturephase.cpp): a convex
 # combination of component phase functions. The reference mixes
-# arbitrary phase plugins through virtual dispatch; the TPU re-design
+# arbitrary phase plugins through virtual dispatch; the Array re-design
 # restricts components to the unoriented analytic kinds (HG with
 # per-component g — g=0 is isotropic — and Rayleigh) and evaluates all
 # components branchlessly (a couple of extra VPU flops instead of a

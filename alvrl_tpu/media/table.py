@@ -8,7 +8,7 @@ the null-interface crossing logic of Scene::evalTransmittance
 re-intersects past index-matched (null) boundaries, switching the
 active medium at each crossing; an opaque hit kills the query.
 
-TPU re-design: media live in one struct-of-arrays table; the *medium
+Array re-design: media live in one struct-of-arrays table; the *medium
 id* is part of the walker state, and switches are masked gathers — no
 object graph. Boundary crossings in the transmittance query become a
 fixed-trip-count `lax.scan` over at most `max_crossings` interfaces
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.core import math as m
 from alvrl_tpu.geometry import intersect

@@ -43,31 +43,6 @@ def run_dryrun(n_devices: int) -> None:
     for name, g in grads.items():
         assert bool(jnp.all(jnp.isfinite(g))), (name, g)
 
-    # kernel-VJP train step: the same sharded step with the render
-    # stage on the forward/backward Pallas kernel pair (seed-replay
-    # custom VJP). On CPU meshes the kernels run under the Pallas
-    # interpreter; on real chips they compile through Mosaic.
-    import contextlib
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    on_tpu = jax.devices()[0].platform == "tpu"
-    ctx = (contextlib.nullcontext() if on_tpu
-           else pltpu.force_tpu_interpret_mode())
-    with ctx:
-        step_k = jax.jit(
-            lambda sc, k, t: prender.train_step(
-                mesh, sc, k, t, cfg, num_particles=8,
-                tracer_cfg=tracer.TracerConfig(max_depth=4),
-                use_pallas=True,
-            )
-        )
-        loss_k, grads_k = step_k(scene, jax.random.key(1), target)
-        jax.block_until_ready((loss_k, grads_k))
-    assert jnp.isfinite(loss_k), loss_k
-    for name, g in grads_k.items():
-        assert bool(jnp.all(jnp.isfinite(g))), (name, g)
-
     # clustered pipeline over the same mesh: transfer-matrix build R
     # sharded (rays x vrls) + the clustered render with sharded rays
     # (VERDICT round-2 item: the dryrun previously exercised only the
@@ -121,8 +96,5 @@ def run_dryrun(n_devices: int) -> None:
         f"dryrun_multichip ok on mesh {dict(mesh.shape)}: "
         f"loss={float(loss):.6g}, "
         + ", ".join(f"|d{k}|={float(jnp.abs(v).sum()):.3g}" for k, v in grads.items())
-        + f"; kernel-VJP step: loss={float(loss_k):.6g}, "
-        + ", ".join(f"|d{k}|={float(jnp.abs(v).sum()):.3g}"
-                    for k, v in grads_k.items())
         + f"; clustered: |R|={r_sum:.3g}, img_mean={float(img_c.mean()):.3g}"
     )

@@ -6,7 +6,7 @@ mitsuba.cpp:280-314) with a jax.sharding.Mesh. Axes:
   'rays' — image-space data parallelism (the counterpart of P1 tile
            distribution, renderproc.cpp:117-184);
   'vrls' — the VRL set sharded across devices; partial per-ray sums are
-           reduced with psum over ICI (the counterpart of the film
+           reduced with psum (the counterpart of the film
            reduction P7, and the scalable answer to growing VRL counts
            suggested in SURVEY §5 long-context notes).
 """

@@ -7,7 +7,8 @@ SURVEY §2.5-2.6):
   * eye rays are sharded over the 'rays' mesh axis (tile parallelism P1);
   * the VRL buffer is sharded over the 'vrls' axis; each device
     integrates its rays against its VRL shard and the partial radiance
-    sums are psum'd over 'vrls' (ICI reduction, P7);
+    sums are psum'd over 'vrls' (P7; XLA hands the collective to NCCL on
+    GPUs);
   * gradients w.r.t. medium/emitter parameters come out of jax.grad
     through the same shard_map — XLA inserts the parameter psum.
 """
@@ -22,16 +23,22 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from alvrl_tpu.core import rng
 from alvrl_tpu.integrators.vrl.integrate import VRLConfig
-from alvrl_tpu.integrators.vrl.integrator import trace_eye_rays, vrl_sum
+from alvrl_tpu.integrators.vrl.integrator import (
+    clustered_li_rays,
+    trace_eye_rays,
+    vrl_sum,
+)
 from alvrl_tpu.integrators.vrl.vrl import VRLs
 from alvrl_tpu.scene.scene import Scene
 from alvrl_tpu.sensors import perspective
 
 
-def li_sharded(mesh: Mesh, scene: Scene, vrls: VRLs, ray_o, ray_d, key, cfg: VRLConfig):
+def li_sharded(mesh: Mesh, scene: Scene, vrls: VRLs, ray_o, ray_d, key,
+               cfg: VRLConfig):
     """Per-ray radiance with rays sharded over 'rays' and the VRL set
     sharded over 'vrls'. ray count must divide the 'rays' axis size and
-    vrls.capacity the 'vrls' axis size."""
+    vrls.capacity the 'vrls' axis size. Each device's pair sum takes the
+    fused GPU kernel where ops.pair_kernel.use_kernel does."""
 
     def local(scene, v_start, v_end, v_power, v_valid, pcount, o, d, key):
         vshard = VRLs(
@@ -57,72 +64,6 @@ def li_sharded(mesh: Mesh, scene: Scene, vrls: VRLs, ray_o, ray_d, key, cfg: VRL
             P(),            # particle count
             P("rays"), P("rays"),  # rays
             P(),            # key
-        ),
-        out_specs=P("rays"),
-        check_vma=False,
-    )(
-        scene,
-        vrls.start, vrls.end, vrls.power, vrls.valid,
-        vrls.particle_count,
-        ray_o, ray_d, key,
-    )
-
-
-def li_sharded_pallas(mesh: Mesh, scene: Scene, vrls: VRLs, ray_o, ray_d,
-                      key, cfg: VRLConfig):
-    """li_sharded through the differentiable Pallas pair kernel
-    (ops.vrl_pallas_bwd.vrl_sum_diff): each device packs its ray and
-    VRL shards, runs the forward kernel, and — under jax.grad — the
-    seed-replay backward kernel; partial radiance is psum'd over 'vrls'
-    and parameter cotangents chain through the XLA-side packs (power,
-    medium scalars, eye-surface tau). This is the production render
-    stage of the sharded train step (VERDICT r03 next-round item 1:
-    the train step previously differentiated the XLA vrl_sum).
-    Homogeneous media only; grid media use the hetero kernel VJP
-    through the unclustered full-frame entry
-    (integrator.render_with_vrls_pallas_hetero_diff)."""
-    from alvrl_tpu.media import api as mapi
-    from alvrl_tpu.ops import pack as pk
-    from alvrl_tpu.ops.vrl_pallas_bwd import vrl_sum_diff
-
-    phase_kind = scene.medium.phase_kind  # static pytree field
-
-    def local(scene, v_start, v_end, v_power, v_valid, pcount, o, d, key):
-        vshard = VRLs(
-            start=v_start, end=v_end, power=v_power, valid=v_valid,
-            particle_count=pcount,
-        )
-        k = rng.fold(
-            key,
-            jax.lax.axis_index("rays"),
-            jax.lax.axis_index("vrls"),
-        )
-        sc = mapi.prepare_scene(scene)
-        hit = trace_eye_rays(sc, o, d)
-        ray_pack = pk.pack_rays(sc, o, d, hit)
-        vrl_pack = pk.pack_vrls(vshard)
-        tri_flat = pk.pack_tris(sc)
-        med_pack = pk.pack_medium(sc)
-        seed = jax.random.randint(k, (1,), 0, 2 ** 31 - 1,
-                                  dtype=jnp.int32)
-        out = vrl_sum_diff(
-            ray_pack, vrl_pack, med_pack, tri_flat, seed,
-            cfg.vol_vol_samples, cfg.vol_surf_samples, cfg.short_vrls,
-            phase_kind)
-        b = o.shape[0]
-        li_part = out.T[:b] / jnp.maximum(pcount, 1.0)
-        li_part = jnp.where(hit.valid[..., None], li_part, 0.0)
-        return jax.lax.psum(li_part, "vrls")
-
-    return jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(
-            P(),
-            P("vrls"), P("vrls"), P("vrls"), P("vrls"),
-            P(),
-            P("rays"), P("rays"),
-            P(),
         ),
         out_specs=P("rays"),
         check_vma=False,
@@ -162,9 +103,10 @@ def pad_vrls(vrls: VRLs, mult):
 
 
 def render_image_sharded(mesh: Mesh, scene: Scene, vrls: VRLs, key,
-                         cfg: VRLConfig, use_pallas: bool = False):
-    """Full-frame sharded render (center rays). use_pallas renders
-    through the differentiable Pallas kernel (li_sharded_pallas)."""
+                         cfg: VRLConfig):
+    """Full-frame sharded render (center rays), through the fused pair
+    kernel where ops.pair_kernel.use_kernel takes it (its custom VJP
+    gives the gradients)."""
     cam = scene.camera
     w, h = cam.width, cam.height
     px, py = jnp.meshgrid(jnp.arange(w), jnp.arange(h))
@@ -174,8 +116,7 @@ def render_image_sharded(mesh: Mesh, scene: Scene, vrls: VRLs, key,
     n_vrls_axis = mesh.shape["vrls"]
     ray_o, ray_d, n = pad_rays(ray_o, ray_d, n_rays_axis)
     vrls = pad_vrls(vrls, n_vrls_axis)
-    fn = li_sharded_pallas if use_pallas else li_sharded
-    li = fn(mesh, scene, vrls, ray_o, ray_d, key, cfg)
+    li = li_sharded(mesh, scene, vrls, ray_o, ray_d, key, cfg)
     return li[:n].reshape(h, w, 3)
 
 
@@ -187,16 +128,14 @@ def train_step(
     cfg: VRLConfig,
     num_particles: int = 8,
     tracer_cfg=None,
-    use_pallas: bool = False,
 ):
     """One full differentiable step: trace VRLs, render, L2 image loss,
     gradients w.r.t. the medium coefficients (sigma_a, sigma_s, g) and
     emitter intensities — the parameters BASELINE.json requires gradients
     for. Differentiation goes *through the tracer* (throughput factors;
     sampled positions are detached — the detached-sampling estimator of
-    SURVEY §7 'hard parts'). use_pallas runs the render stage through
-    the forward/backward Pallas kernel pair (seed-replay custom VJP)
-    instead of the XLA estimator."""
+    SURVEY §7 'hard parts'). On a GPU the render stage takes the fused
+    kernel where ops.pair_kernel.use_kernel does."""
     from alvrl_tpu.integrators.vrl import tracer as tracer_mod
 
     if tracer_cfg is None:
@@ -211,8 +150,7 @@ def train_step(
         sc = scene.replace(medium=med, emitters=em)
         vrls = tracer_mod.trace(sc, k_trace, num_particles, tracer_cfg)
         vrls = pad_vrls(vrls, mesh.shape["vrls"])
-        img = render_image_sharded(mesh, sc, vrls, k_render, cfg,
-                                   use_pallas=use_pallas)
+        img = render_image_sharded(mesh, sc, vrls, k_render, cfg)
         return jnp.mean((img - target) ** 2)
 
     params = {
@@ -240,7 +178,10 @@ def build_r_sharded(mesh: Mesh, scene: Scene, ray_o, ray_d, vrls: VRLs,
     with NO collective (the reference fans this out over Rbuilder
     threads, vrlIntegrator.cpp:1038-1083). Returns (mean (P, N),
     var (P, N)) sharded P('rays', 'vrls')."""
-    from alvrl_tpu.integrators.vrl.integrate import pair_contribution
+    from alvrl_tpu.integrators.vrl.integrate import (
+        pair_contribution,
+        pair_uniforms,
+    )
     from alvrl_tpu.media import api as mapi
 
     def local(scene, v_start, v_end, v_power, v_valid, pcount, o, d, key):
@@ -251,10 +192,8 @@ def build_r_sharded(mesh: Mesh, scene: Scene, ray_o, ray_d, vrls: VRLs,
         b = o.shape[0]
         c = v_start.shape[0]
         expand = lambda a: a[:, None] if a.ndim == 1 else a[:, None, :]
-        u_vv = rng.uniform(rng.fold(k, rng.P_VOLVOL),
-                           (b, c, cfg.vol_vol_samples, 2))
-        u_vs = rng.uniform(rng.fold(k, rng.P_VOLSURF),
-                           (b, c, cfg.vol_surf_samples))
+        u_vv, u_vs = pair_uniforms(rng.seed_bits(k), jnp.arange(b),
+                                   jnp.arange(c), cfg)
         kw = {}
         if not mapi.is_homogeneous(scene.medium):
             from alvrl_tpu.media import heterogeneous as gmed
@@ -293,7 +232,6 @@ def render_clustered_sharded(mesh: Mesh, scene: Scene, vrls: VRLs,
     buffer and the per-slice representative tables are replicated
     (they are the small clustered resources the reference registers
     once per worker, vrlIntegrator.cpp:353-384). Returns (H, W, 3)."""
-    from alvrl_tpu.integrators.vrl.integrate import pair_contribution
     from alvrl_tpu.media import api as mapi
 
     cam = scene.camera
@@ -309,35 +247,16 @@ def render_clustered_sharded(mesh: Mesh, scene: Scene, vrls: VRLs,
     def local(scene, tv, tw, v_start, v_end, v_power, v_valid, pcount,
               o, d, sl, key):
         scene = mapi.prepare_scene(scene)
-        hit = trace_eye_rays(scene, o, d)
-        k = rng.fold(key, jax.lax.axis_index("rays"), rng.P_CLUSTER)
-        b = o.shape[0]
-        cmax = tv.shape[1]
-        ids = tv[sl]
-        wgt = tw[sl]
-        expand = lambda a: a[:, None] if a.ndim == 1 else a[:, None, :]
-        u_vv = rng.uniform(rng.fold(k, rng.P_VOLVOL),
-                           (b, cmax, cfg.vol_vol_samples, 2))
-        u_vs = rng.uniform(rng.fold(k, rng.P_VOLSURF),
-                           (b, cmax, cfg.vol_surf_samples))
-        kw = {}
+        vrls = VRLs(start=v_start, end=v_end, power=v_power, valid=v_valid,
+                    particle_count=pcount)
+        vrl_od_full = None
         if not mapi.is_homogeneous(scene.medium):
             from alvrl_tpu.media import heterogeneous as gmed
 
-            kw = dict(
-                eye_od=gmed.cumulative_od(scene.medium, o, hit.p)[:, None],
-                vrl_od=gmed.cumulative_od(
-                    scene.medium, v_start, v_end)[ids],
-            )
-        total, _, _ = pair_contribution(
-            scene, expand(o), expand(d), expand(hit.p), expand(hit.valid),
-            expand(hit.ng), expand(hit.mat),
-            v_start[ids], v_end[ids], v_power[ids],
-            v_valid[ids] & (wgt > 0),
-            u_vv, u_vs, cfg, **kw)
-        li = jnp.sum(total * wgt[..., None], axis=1) / jnp.maximum(
-            pcount, 1.0)
-        return jnp.where(hit.valid[..., None], li, 0.0)
+            vrl_od_full = gmed.cumulative_od(scene.medium, v_start, v_end)
+        k = rng.fold(key, jax.lax.axis_index("rays"), rng.P_CLUSTER)
+        return clustered_li_rays(scene, vrls, sl, tv, tw, k, o, d, cfg,
+                                 vrl_od_full=vrl_od_full)
 
     li = jax.shard_map(
         local,

@@ -12,10 +12,12 @@ arithmetic over the material kind.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from alvrl_tpu.core import struct
 
 from alvrl_tpu.emitters.emitters import Emitters
 from alvrl_tpu.media.homogeneous import HomogeneousMedium
@@ -84,6 +86,40 @@ class Materials:
                                     # alpha), so alpha > 0.5 coatings
                                     # interpolate instead of clamping to
                                     # the 0.5 row (ADVICE r03 item 3)
+    # static: the distinct (kind, tex_kind) pairs of the table, recorded
+    # while the table is concrete (None when built from traced arrays).
+    # It survives jit, so the BSDF dispatch and the pair-kernel choice
+    # can depend on which material kinds exist.
+    kind_set: tuple = struct.field(pytree_node=False, default=None)
+
+    def __post_init__(self):
+        if self.kind_set is None:
+            object.__setattr__(self, "kind_set",
+                               _kind_set(self.kind, self.tex_kind))
+
+    def replace(self, **updates):
+        if "kind" in updates or "tex_kind" in updates:
+            updates.setdefault("kind_set", None)  # recorded anew
+        return dataclasses.replace(self, **updates)
+
+    def kinds(self):
+        """frozenset of the material kinds in the table, None if unknown."""
+        if self.kind_set is None:
+            return None
+        return frozenset(k for k, _ in self.kind_set)
+
+
+def _kind_set(kind, tex_kind):
+    try:
+        k = np.asarray(kind).reshape(-1)
+        t = (np.zeros_like(k) if tex_kind is None
+             else np.asarray(tex_kind).reshape(-1))
+    except jax.errors.TracerArrayConversionError:
+        return None
+    if k.dtype.kind not in "iu" or t.dtype.kind not in "iu" \
+            or k.shape != t.shape:
+        return None
+    return tuple(sorted({(int(a), int(b)) for a, b in zip(k, t)}))
 
 
 def make_materials(kinds, albedos, etas=None, alphas=None,

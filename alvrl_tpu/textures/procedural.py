@@ -115,6 +115,9 @@ def albedo_at(scene, mat_id, p, uv=None):
     base = mats.albedo[mat_id]
     if not hasattr(mats, "tex_kind") or mats.tex_kind is None:
         return base
+    kind_set = getattr(mats, "kind_set", None)
+    if kind_set is not None and all(t == TEX_NONE for _, t in kind_set):
+        return base  # no textured material (static)
     kind = mats.tex_kind[mat_id]
     scale = mats.tex_scale[mat_id]
     alb2 = mats.albedo2[mat_id]

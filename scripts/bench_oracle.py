@@ -3,7 +3,7 @@
 pair-evals/s guess with a measurement).
 
 The oracle (native/vrl_oracle.cpp) is a double-precision scalar C++
-implementation of exactly the integrand bench.py times on TPU: Kulla
+implementation of exactly the integrand bench.py times on the GPU: Kulla
 product sampling + any-hit occlusion over the Cornell triangle list +
 transmittance/phase products, per (ray, VRL, sample). --bench mode
 sweeps the full 128x128-ray x 512-VRL x 4-sample workload with random
@@ -41,8 +41,7 @@ def export_scene(tmp, width=128, height=128):
     from alvrl_tpu.integrators.vrl.integrate import VRLConfig
     from alvrl_tpu.integrators.vrl.integrator import trace_eye_rays
     from alvrl_tpu.media import api as mapi
-    from alvrl_tpu.ops import pack as pk
-    from alvrl_tpu.ops import vrl_pallas as vp
+    from alvrl_tpu.ops import pair_kernel as pk
     from alvrl_tpu.scene import presets
     from alvrl_tpu.sensors import perspective
 
@@ -64,11 +63,12 @@ def export_scene(tmp, width=128, height=128):
     px, py = px.reshape(-1), py.reshape(-1)
     ray_o, ray_d = perspective.sample_ray(scene.camera, px, py)
     hit = trace_eye_rays(scene_p, ray_o, ray_d)
-    ray_pack = np.asarray(pk.pack_rays(scene_p, ray_o, ray_d, hit))
+    ray_pack = np.asarray(pk.pack_rays(
+        scene_p, ray_o, ray_d, hit.p, hit.valid, hit.ng, hit.mat)).T
     n = ray_o.shape[0]
 
     med = scene.medium
-    tris = np.asarray(pk.pack_tris(scene_p)).reshape(-1, 9)
+    tris = np.asarray(pk.pack_tris(scene_p)).T
     lines = [
         "medium " + " ".join(
             f"{float(x):.9g}"
@@ -82,11 +82,11 @@ def export_scene(tmp, width=128, height=128):
     lines.append(f"rays {n}")
     for i in range(n):
         row = ray_pack[i]
-        vals = list(row[vp._RO:vp._RO + 3]) + list(row[vp._RD:vp._RD + 3])
-        vals += list(row[vp._HP:vp._HP + 3]) + list(row[vp._NG:vp._NG + 3])
-        vals += list(row[vp._ALB:vp._ALB + 3])
+        vals = list(row[pk._RO:pk._RO + 3]) + list(row[pk._RD:pk._RD + 3])
+        vals += list(row[pk._HP:pk._HP + 3]) + list(row[pk._NG:pk._NG + 3])
+        vals += list(row[pk._ALB:pk._ALB + 3])
         lines.append(" ".join(f"{float(v):.9g}" for v in vals)
-                     + f" {int(row[vp._VALID] > 0.5)}")
+                     + f" {int(row[pk._VALID] > 0.5)}")
     scene_file = os.path.join(tmp, "scene.txt")
     with open(scene_file, "w") as f:
         f.write("\n".join(lines) + "\n")

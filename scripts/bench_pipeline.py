@@ -17,10 +17,11 @@ Usage: python scripts/bench_pipeline.py [n_passes] [size] [hetero01]
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import scripts._cache  # noqa: F401
 
 import jax
@@ -47,8 +48,7 @@ def main():
     # warmup/compile both paths once (one pass each)
     print("warmup (compiles)...", file=sys.stderr)
     t0 = time.time()
-    img, vrls, _ = alvrl.render_alvrl(scene, key, params, cfg,
-                                      use_pallas=True)
+    img, vrls, _ = alvrl.render_alvrl(scene, key, params, cfg)
     jax.block_until_ready(img)
     print(f"warmup serial pass: {time.time() - t0:.1f}s",
           file=sys.stderr)
@@ -58,8 +58,7 @@ def main():
     si = alvrl.build_slice_info(scene, params)
     for k in range(n_passes):
         img, vrls, _ = alvrl.render_alvrl(
-            scene, jax.random.fold_in(key, k), params, cfg,
-            use_pallas=True, slice_info=si)
+            scene, jax.random.fold_in(key, k), params, cfg, slice_info=si)
         jax.block_until_ready(img)
     serial_pp = (time.time() - t0) / n_passes
     print(f"serial: {serial_pp * 1e3:.0f} ms/pass", file=sys.stderr)
@@ -70,7 +69,7 @@ def main():
     tms = {"verbose": 1}
     t0 = time.time()
     img2, _, _ = alvrl.render_alvrl_progressive(
-        scene, n_passes, key, params, cfg, use_pallas=True,
+        scene, n_passes, key, params, cfg,
         timings=tms)
     jax.block_until_ready(img2)
     print(f"pipelined cold: {(time.time()-t0)/n_passes*1e3:.0f} ms/pass",
@@ -78,7 +77,7 @@ def main():
     tms = {"verbose": 1}
     t0 = time.time()
     img2, _, _ = alvrl.render_alvrl_progressive(
-        scene, n_passes, key, params, cfg, use_pallas=True,
+        scene, n_passes, key, params, cfg,
         timings=tms)
     jax.block_until_ready(img2)
     pipe_pp = (time.time() - t0) / n_passes

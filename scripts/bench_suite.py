@@ -10,10 +10,11 @@ Usage: python scripts/bench_suite.py [config_numbers...]
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import scripts._cache  # noqa: F401  (persistent compile cache)
 
 import jax
@@ -41,7 +42,7 @@ def config1():
                        tracer.TracerConfig(max_depth=12))
     vrls = vrl_mod.compact(raw, 512, slots_per_particle=12)
     cfg = VRLConfig()
-    img, dt = _timed(lambda: integrator.render_with_vrls_pallas(
+    img, dt = _timed(lambda: integrator.render_with_vrls(
         scene, vrls, jax.random.key(1), cfg))
     evals = 128 * 128 * 512 * 4
     return {
@@ -98,7 +99,7 @@ def config3():
                        tracer.TracerConfig(max_depth=12))
     vrls = vrl_mod.compact(raw, 512, slots_per_particle=12)
     cfg = VRLConfig(vol_vol_samples=2, vol_surf_samples=2)
-    img, dt = _timed(lambda: integrator.render_with_vrls_pallas(
+    img, dt = _timed(lambda: integrator.render_with_vrls(
         scene, vrls, jax.random.key(1), cfg))
     evals = 256 * 256 * 512 * 4
     return {
@@ -123,21 +124,16 @@ def config4():
     )
     t0 = time.time()
     si = alvrl.build_slice_info(scene, params)
-    # round 3: use_pallas routes the render through the heterogeneous
-    # CP-factor Pallas kernel (ops/vrl_pallas.py) — measured warm
-    # 2.1-2.3 s/pass vs 8.5 s on the XLA table path
     img, vrls, info = alvrl.render_alvrl(
         scene, jax.random.key(0), params,
-        cfg=VRLConfig(vrl_chunk=128), tracer_cfg=TracerConfig(max_depth=10),
-        use_pallas=True, slice_info=si,
+        cfg=VRLConfig(vrl_chunk=128), tracer_cfg=TracerConfig(max_depth=10), slice_info=si,
     )
     jax.block_until_ready(img)
     cold = time.time() - t0
     t0 = time.time()
     img, vrls, info = alvrl.render_alvrl(
         scene, jax.random.key(1), params,
-        cfg=VRLConfig(vrl_chunk=128), tracer_cfg=TracerConfig(max_depth=10),
-        use_pallas=True, slice_info=si,
+        cfg=VRLConfig(vrl_chunk=128), tracer_cfg=TracerConfig(max_depth=10), slice_info=si,
     )
     jax.block_until_ready(img)
     warm = time.time() - t0
@@ -162,7 +158,7 @@ def config5():
                        tracer.TracerConfig(max_depth=12))
     vrls = vrl_mod.compact(raw, 512, slots_per_particle=12)
     cfg = VRLConfig()
-    img, dt = _timed(lambda: integrator.render_with_vrls_pallas(
+    img, dt = _timed(lambda: integrator.render_with_vrls(
         scene, vrls, jax.random.key(1), cfg), n=1)
     evals = 1024 * 1024 * 512 * 4
 

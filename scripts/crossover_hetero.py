@@ -2,9 +2,9 @@
 benchmark scene (VERDICT round-2 item 3: the claim that clustering wins
 in the expensive-per-pair regime was a projection; this measures it).
 
-Both arms use the heterogeneous Pallas kernel (ops/vrl_pallas.py):
-  * unclustered: every pixel vs every VRL (render_with_vrls_pallas_hetero)
-  * clustered:   Adaptive LightSlice (render_alvrl use_pallas=True)
+Both arms run the grid-medium XLA path:
+  * unclustered: every pixel vs every VRL (render_with_vrls)
+  * clustered:   Adaptive LightSlice (render_alvrl)
 Equal-time MSE against a self-converged unclustered reference
 (integrator.cpp:361-378 equal-work methodology).
 
@@ -13,10 +13,11 @@ Usage: python scripts/crossover_hetero.py [budget_s] [W] [n_vrls]
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import scripts._cache  # noqa: F401
 
 import jax
@@ -47,7 +48,7 @@ def main():
     def unclustered_pass(i):
         vr = trace_pass(i)
         return np.asarray(jax.block_until_ready(
-            integrator.render_with_vrls_pallas_hetero(
+            integrator.render_with_vrls(
                 scene, vr, jax.random.key(6000 + i), cfg)))
 
     # self-converged reference
@@ -83,15 +84,14 @@ def main():
     )
     si = alvrl.build_slice_info(scene, params)
     img, _, _ = alvrl.render_alvrl(
-        scene, jax.random.key(1), params, cfg=cfg, tracer_cfg=tcfg,
-        use_pallas=True, slice_info=si)  # warm
+        scene, jax.random.key(1), params, cfg=cfg, tracer_cfg=tcfg, slice_info=si)  # warm
     jax.block_until_ready(img)
     acc, n = None, 0
     t0 = time.time()
     while time.time() - t0 < budget:
         img, _, _ = alvrl.render_alvrl(
             scene, jax.random.key(100 + n), params, cfg=cfg,
-            tracer_cfg=tcfg, use_pallas=True, slice_info=si)
+            tracer_cfg=tcfg, slice_info=si)
         img = np.asarray(jax.block_until_ready(img))
         acc = img if acc is None else acc + img
         n += 1

@@ -10,10 +10,11 @@ Usage: python scripts/equal_time.py [seconds_budget]
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import scripts._cache  # noqa: F401
 
 import jax
@@ -48,7 +49,7 @@ def main():
                                n_particles, tcfg)
             vr = vrl_mod.compact(raw, n_vrls, slots_per_particle=12)
             img = np.asarray(jax.block_until_ready(
-                integrator.render_with_vrls_pallas(
+                integrator.render_with_vrls(
                     scene, vr, jax.random.key(6000 + i), cfg)))
             acc = img if acc is None else acc + img
         oracle = acc / n_ref
@@ -59,7 +60,7 @@ def main():
         acc, n = None, 0
         # warm up compiles outside the budget
         raw = tracer.trace(scene, jax.random.key(0), 128, tcfg)
-        img = integrator.render_with_vrls_pallas(
+        img = integrator.render_with_vrls(
             scene, vrl_mod.compact(raw, 512, slots_per_particle=12),
             jax.random.key(0), cfg)
         jax.block_until_ready(img)
@@ -67,7 +68,7 @@ def main():
         while time.time() - t0 < budget:
             raw = tracer.trace(scene, jax.random.key(100 + n), n_particles, tcfg)
             vr = vrl_mod.compact(raw, n_vrls, slots_per_particle=12)
-            img = integrator.render_with_vrls_pallas(
+            img = integrator.render_with_vrls(
                 scene, vr, jax.random.key(200 + n), cfg)
             img = np.asarray(jax.block_until_ready(img))
             acc = img if acc is None else acc + img
@@ -81,7 +82,7 @@ def main():
             vrl_target_num=n_vrls, num_particles=n_particles,
             cluster=cparams)
         img, _, _ = alvrl.render_alvrl(scene, jax.random.key(0), params,
-                                       cfg, tcfg, use_pallas=True)
+                                       cfg, tcfg)
         jax.block_until_ready(img)
         acc, n = None, 0
         t0 = time.time()
@@ -90,8 +91,7 @@ def main():
                 vrl_target_num=n_vrls, num_particles=n_particles,
                 seed=300 + n, cluster=cparams)
             img, _, _ = alvrl.render_alvrl(
-                scene, jax.random.key(300 + n), p, cfg, tcfg,
-                use_pallas=True)
+                scene, jax.random.key(300 + n), p, cfg, tcfg)
             img = np.asarray(jax.block_until_ready(img))
             acc = img if acc is None else acc + img
             n += 1

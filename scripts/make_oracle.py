@@ -1,7 +1,8 @@
 """Precompute the volpath oracle image for equal-time comparisons
 (run on CPU: forced below)."""
+import os
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np

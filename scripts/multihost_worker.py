@@ -4,7 +4,7 @@ Counterpart of running `mtssrv` on each node (mtssrv.cpp) — except
 there is no message loop: every process runs the SAME program, joins
 the jax.distributed runtime, and executes one shard_map render step
 over the global mesh. Used by tests/test_multihost.py (2 CPU processes
-x 2 virtual devices) and directly on TPU pods.
+x 2 virtual devices) and, one process per host, on GPU machines.
 
 Usage (per process):
   python scripts/multihost_worker.py <coordinator> <nprocs> <pid> <out.npy>

@@ -2,7 +2,7 @@
 clustered ALVRL vs the onlyVRLpaths volpath oracle. Writes
 VALIDATION.md with the numbers."""
 import sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import scripts._cache  # noqa: F401
 import jax
 import numpy as np

@@ -79,48 +79,3 @@ def test_bunny_scale_build():
     assert bool(valid)
     assert abs(float(t) - 2.0) < 1e-2
 
-
-def test_bvh_kernel_matches_smem_kernel():
-    """The two-level (cluster-DMA) occlusion kernel must reproduce the
-    SMEM-sweep kernel exactly at small scale: same seed => identical
-    samples => identical estimator output (round-4 phase-2 regression:
-    register-carry sweep + per-ray-group culling)."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from alvrl_tpu.integrators.vrl import tracer, vrl as vrl_mod
-    from alvrl_tpu.integrators.vrl.integrator import trace_eye_rays
-    from alvrl_tpu.media import api as mapi
-    from alvrl_tpu.ops import pack as pk
-    from alvrl_tpu.ops import vrl_pallas as vp
-    from alvrl_tpu.scene import presets
-    from alvrl_tpu.sensors import perspective
-
-    sc = mapi.prepare_scene(presets.cornell_smoke(width=16, height=8))
-    vr = vrl_mod.compact(
-        tracer.trace(sc, jax.random.key(0), 16,
-                     tracer.TracerConfig(max_depth=6)),
-        128)
-    px, py = np.meshgrid(np.arange(16), np.arange(8))
-    ro, rd = perspective.sample_ray(
-        sc.camera, jnp.asarray(px.reshape(-1)),
-        jnp.asarray(py.reshape(-1)))
-    hit = trace_eye_rays(sc, ro, rd)
-    rp = pk.pack_rays(sc, ro, rd, hit)
-    vpk = pk.pack_vrls(vr)
-    med = pk.pack_medium(sc)
-    seed = jnp.asarray([3], jnp.int32)
-    clb, sclb, blocks, c = vp.pack_tri_clusters(
-        np.asarray(sc.vertices), np.asarray(sc.faces),
-        np.asarray(sc.opaque_faces()))
-    with pltpu.force_tpu_interpret_mode():
-        a = np.asarray(vp.vrl_sum_pallas(rp, vpk, pk.pack_tris(sc),
-                                         med, seed))
-        b = np.asarray(vp.vrl_sum_pallas_bvh(rp, vpk, clb, sclb, blocks,
-                                             med, seed, n_clusters=c))
-    nz = a > 1e-9
-    assert nz.sum() > 50
-    rel = np.abs(a - b)[nz] / a[nz]
-    assert np.median(rel) < 1e-6, np.median(rel)
-    assert rel.max() < 1e-4, rel.max()

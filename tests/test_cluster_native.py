@@ -6,13 +6,9 @@ different RNGs, so the tests check structural and statistical
 equivalence, not bitwise equality."""
 
 import numpy as np
-import pytest
 
 from alvrl_tpu.integrators.vrl import cluster as cl
 from alvrl_tpu.integrators.vrl import cluster_native as cn
-
-pytestmark = pytest.mark.skipif(not cn.available(),
-                                reason="native cluster lib not built")
 
 
 def _rand_R(p=24, n=96, seed=0):

@@ -33,8 +33,7 @@ from alvrl_tpu.integrators.vrl import tracer, vrl as vrl_mod
 from alvrl_tpu.integrators.vrl.integrate import VRLConfig, pair_contribution
 from alvrl_tpu.integrators.vrl.integrator import trace_eye_rays
 from alvrl_tpu.media import api as mapi
-from alvrl_tpu.ops import pack as pk
-from alvrl_tpu.ops import vrl_pallas as vp
+from alvrl_tpu.ops import pair_kernel as pk
 from alvrl_tpu.scene import presets
 from alvrl_tpu.sensors import perspective
 
@@ -66,13 +65,10 @@ def _export_scene(scene_p, ray_o, ray_d, hit, cfg, u_fix, path,
     re-implemented in C++); clusters=(slices, ray_slice) appends the
     clustered section."""
     med = scene_p.medium
-    if hetero:
-        ray_pack = np.asarray(
-            pk.pack_rays_hetero(scene_p, ray_o, ray_d, hit))
-    else:
-        ray_pack = np.asarray(pk.pack_rays(scene_p, ray_o, ray_d, hit))
+    ray_pack = np.asarray(pk.pack_rays(
+        scene_p, ray_o, ray_d, hit.p, hit.valid, hit.ng, hit.mat)).T
     n = ray_o.shape[0]
-    tris = np.asarray(pk.pack_tris(scene_p)).reshape(-1, 9)
+    tris = np.asarray(pk.pack_tris(scene_p)).T
     if hetero:
         med_line = ("medium 0 0 0 0 0 0 "
                     f"{float(med.g):.9g} 1.0")
@@ -92,11 +88,11 @@ def _export_scene(scene_p, ray_o, ray_d, hit, cfg, u_fix, path,
     lines.append(f"rays {n}")
     for i in range(n):
         row = ray_pack[i]
-        vals = list(row[vp._RO:vp._RO + 3]) + list(row[vp._RD:vp._RD + 3])
-        vals += list(row[vp._HP:vp._HP + 3]) + list(row[vp._NG:vp._NG + 3])
-        vals += list(row[vp._ALB:vp._ALB + 3])
+        vals = list(row[pk._RO:pk._RO + 3]) + list(row[pk._RD:pk._RD + 3])
+        vals += list(row[pk._HP:pk._HP + 3]) + list(row[pk._NG:pk._NG + 3])
+        vals += list(row[pk._ALB:pk._ALB + 3])
         lines.append(" ".join(f"{float(v):.9g}" for v in vals)
-                     + f" {int(row[vp._VALID] > 0.5)}")
+                     + f" {int(row[pk._VALID] > 0.5)}")
     if hetero:
         from alvrl_tpu.media import heterogeneous as gmed
 

@@ -34,9 +34,10 @@ from alvrl_tpu.integrators import mlt, surface
            "round-6 item 1. The test stays as the canary: it flips to "
            "PASS when a manifold-capable mutator lands.")
 def test_sds_caustic_region_mlt_vs_path():
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from scripts.sds_study import block_means, sds_scene
 
     scene = sds_scene(48)
